@@ -1,9 +1,9 @@
-"""green_marl_tpu — TPU-native graph-analytics framework.
+"""green_marl_tpu — graph-analytics framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 libshoal/Green-Marl (see SURVEY.md at the repo root): an immutable padded
 CSR graph substrate, a segment-reduction/edge-map kernel library, a jitted
-superstep engine, mesh-sharded multi-chip execution, and the reference's
+superstep engine, mesh-sharded multi-device execution, and the reference's
 algorithm suite (PageRank, BFS/hop_dist, SSSP, CC, triangle counting,
 conductance, betweenness centrality, ...).
 """

@@ -1032,6 +1032,8 @@ def make_custom(path: str) -> UserMain:
 
 
 def main(argv=None) -> int:
+    from ..utils import compile_cache
+    compile_cache.enable()
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m green_marl_tpu.cli.run "

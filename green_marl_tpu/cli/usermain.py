@@ -96,7 +96,7 @@ class UserMain:
         self.O.add_option("GMOutputFormat", str, "NULL",
                           "BIN|EBIN|EDGE|NODE_PROP|AVRO|NULL")
         self.O.add_option("GMNumChips", int, None,
-                          "Number of TPU chips (mesh size)")
+                          "Number of devices (mesh size)")
         self.O.add_option("GMPlacement", str, "distribute",
                           "Sharded-run array placement policy: "
                           "'distribute' = vertex-sharded O(N/S) owned "

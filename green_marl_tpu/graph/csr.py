@@ -1,6 +1,6 @@
 """Device-resident CSR graph substrate.
 
-TPU-native equivalent of the reference ``gm_graph`` runtime
+Equivalent of the reference ``gm_graph`` runtime
 (``apps/output_cpp/gm_graph/inc/gm_graph.h:119-447``,
 ``src/gm_graph.cc``): the mutable "flexible" representation lives on the
 host (``GraphBuilder``), while the frozen form is an immutable pytree of
@@ -24,10 +24,10 @@ reference              this module
 NODE_SIZE/EDGE_SIZE    ``node_dtype`` / ``edge_dtype`` (``setup.mk.in:55-57``)
 =====================  =========================================================
 
-TPU-first design notes (not in the reference):
+Design notes (not in the reference):
 
-* All O(E) arrays are padded to a multiple of ``LANE`` (128) so XLA can tile
-  them; padded slots hold the sentinel node id ``N``.  Property arrays are
+* All O(E) arrays are padded to a multiple of ``LANE`` (128) so every
+  E-sized length is a fixed multiple shared by all kernels; padded slots hold the sentinel node id ``N``.  Property arrays are
   allocated with ``N_pad = round_up(N + 1, 128)`` entries so the sentinel is
   a *valid* index into a junk row — out-of-range gathers/scatters land there
   harmlessly instead of relying on clamp semantics.
@@ -45,7 +45,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-LANE = 128  # TPU lane width; all padded axes are multiples of this.
+LANE = 128  # padding granule: all padded axes are multiples of this.
 
 
 def round_up(x: int, m: int = LANE) -> int:

@@ -1,7 +1,7 @@
 """ctypes bindings for the native host runtime (``native/gm_io.cc``).
 
 The reference's graph runtime is C++ (``apps/output_cpp/gm_graph``); here
-the device compute path is JAX/Pallas but the host-side heavy lifting —
+the device compute path is JAX but the host-side heavy lifting —
 CSR/CSC freeze with semi-sort and reverse edges, edge-list text parsing,
 RMAT generation — has a native OpenMP implementation, auto-built on first
 use (``make -C native``) with a transparent numpy fallback when no
@@ -19,6 +19,7 @@ import numpy as np
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_BUILD_ERROR: Optional[str] = None
 
 _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
@@ -26,7 +27,7 @@ _NATIVE_DIR = os.path.join(
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _LIB, _TRIED
+    global _LIB, _TRIED, _BUILD_ERROR
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
@@ -42,12 +43,16 @@ def _load() -> Optional[ctypes.CDLL]:
         try:
             subprocess.run(["make", "-C", _NATIVE_DIR, "-s", "-B"],
                            check=True, capture_output=True, timeout=120)
-        except Exception:
+        except (OSError, subprocess.SubprocessError) as e:
+            err = getattr(e, "stderr", None) or b""
+            _BUILD_ERROR = (f"{type(e).__name__}: "
+                            f"{err.decode(errors='replace')[-400:] or e}")
             if not os.path.exists(so):
                 return None
     try:
         lib = ctypes.CDLL(so)
-    except OSError:
+    except OSError as e:
+        _BUILD_ERROR = f"load failed: {e}"
         return None
     i32p = ctypes.POINTER(ctypes.c_int32)
     lib.gm_build_csr.restype = ctypes.c_int
@@ -73,6 +78,20 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def build_error() -> Optional[str]:
+    """Why the last build or load of the library failed (None if it
+    did not)."""
+    _load()
+    return _BUILD_ERROR
+
+
+def openmp() -> Optional[bool]:
+    """Whether the loaded library was built with OpenMP (the Makefile
+    falls back to a serial build without it); None if none loaded."""
+    fn = getattr(_load(), "gm_openmp", None)   # absent from a stale .so
+    return None if fn is None else bool(fn())
 
 
 def _ptr(a: np.ndarray):

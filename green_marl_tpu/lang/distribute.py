@@ -1,6 +1,6 @@
 """Distributed execution of compiled Green-Marl programs over a mesh.
 
-The TPU-native equivalent of the reference's GPS/Giraph distributed
+The JAX equivalent of the reference's GPS/Giraph distributed
 backends (``src/backend_gps/``, SURVEY.md §2.6): there, the compiler carves
 a procedure into supersteps and synthesizes typed messages between vertex
 shards; here, the *same lowered program* runs SPMD under ``shard_map`` with

@@ -4,7 +4,7 @@ The reference cpp backend splices foreign text verbatim into its
 generated C++ (``src/parse/gm_parse_foreign_syntax.cc:1-261``,
 ``test/parse/p10.gm``) with ``$var`` references bound to the enclosing
 scope and an optional ``::[x, ...]`` mutation list naming what the text
-writes.  The TPU-native analog keeps the semantics AND the language:
+writes.  The JAX analog keeps the semantics AND the language:
 the same text is compiled by g++ into a tiny shared object (the
 toolchain the reference's output needs anyway) and executed on the
 HOST against the DSL scalar values, with the mutation list written

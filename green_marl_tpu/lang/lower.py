@@ -1,13 +1,13 @@
 """Lowering: typechecked Green-Marl AST -> jitted JAX array program.
 
-This is the TPU-native replacement for the reference's entire back half —
+This is the JAX replacement for the reference's entire back half —
 the backend-independent optimizer (``src/opt/``) and the C++/OpenMP code
 generator (``src/backend_cpp/gm_cpp_gen.cc``).  Instead of emitting C++
 source with ``#pragma omp parallel for`` over CSR ranges and atomic/lock
 reductions, we *vectorize* the AST directly into JAX:
 
 ==========================  =================================================
-reference construct          TPU lowering
+reference construct          JAX lowering
 ==========================  =================================================
 ``Foreach(n: G.Nodes)``      masked dense ops over the padded node axis
                              (``gm_cpp_gen.cc:1021-1072`` OpenMP loop)
@@ -38,7 +38,7 @@ is order-independent (a reduction or a disjoint write); order-dependent
 sequential loops raise ``LowerError`` (the reference backend's
 ``check_feasible`` analog, ``gm_cpp_opt_check_feasible.cc``).
 
-dtype mapping (TPU-native): INT/LONG -> int32, FLOAT/DOUBLE -> float32
+dtype mapping (x64 off): INT/LONG -> int32, FLOAT/DOUBLE -> float32
 (float64 if jax x64 is enabled), BOOL -> bool, NODE/EDGE -> int32.
 ``INF`` follows the reference's saturation semantics (INT_MAX etc.,
 ``gm_main.cc`` / ``gm_defs.h``): coercion clamps infinities to the integer
@@ -66,7 +66,7 @@ class _CtxMapHist:
     (communities.gm): one logical histogram per outer node.  Increments
     recorded in edge space are reduced on demand into per-outer-node
     (max count, arg-max key, count-of-key) vectors via a composite-key
-    sort + run-length encoding — the scatter-free TPU formulation of the
+    sort + run-length encoding — the scatter-free formulation of the
     reference's per-iteration hash map (``gm_map.h``).
 
     Tie-breaks pick the smallest key (the reference's hash-iteration
@@ -551,7 +551,7 @@ class Lowerer:
         """Deterministic counter-based uniform draw (threefry).
 
         The reference seeds one erand48 state per OpenMP thread
-        (``gm_runtime.cc:60-75``); the TPU-native equivalent is a
+        (``gm_runtime.cc:60-75``); the equivalent here is a
         counter-based stream: every call site gets a unique trace-time
         stream id and every dynamic draw bumps a traced counter carried
         through loops, so draws are reproducible and vectorize over any
@@ -1571,7 +1571,7 @@ class Lowerer:
                 return
         # self-update pattern ``x.p = x.p + e`` in a parallel context:
         # the reference emits a racy non-atomic update here (e.g.
-        # adamicAdar2's ``from.cnt++``); the deterministic TPU semantics
+        # adamicAdar2's ``from.cnt++``); the deterministic device semantics
         # is the equivalent reduction.
         if ctx is not None and isinstance(rhs, A.BinOp) and \
                 rhs.op in ("+", "*") and isinstance(rhs.lhs, A.Field) and \

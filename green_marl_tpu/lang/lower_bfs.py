@@ -2,7 +2,7 @@
 
 The reference compiles a BFS statement into a subclass of the
 direction-optimizing ``gm_bfs_template`` with ``visit_fw``/``visit_rv``
-virtuals (``gm_cpp_gen_bfs.cc:7-275``).  The TPU lowering instead:
+virtuals (``gm_cpp_gen_bfs.cc:7-275``).  The JAX lowering instead:
 
 1. computes the full level array with the framework's level-synchronous
    frontier engine (``models.hop_dist`` machinery);

@@ -1504,7 +1504,7 @@ def run_vertex_sharded(cp: CompiledProc, g: Graph, *args,
     halo).  ``replicate`` pins a READ-ONLY input node property to full
     per-device addressability: its halo slots are pre-filled at bind
     time and stay permanently fresh, so it never rides the superstep
-    ``all_to_all`` — the TPU meaning of a per-socket replicated copy.
+    ``all_to_all`` — the device-mesh meaning of a per-socket replicated copy.
     Written properties and edge properties reject with ``LowerError``
     (a replicated written copy would diverge; edge arrays define the
     partition itself).

@@ -2,7 +2,7 @@
 
 The reference carries a shared reaching-defs analysis
 (``src/common/gm_reaching_def_analysis.cc``) consulted by its optimizer
-passes.  This is the TPU build's equivalent: a per-block forward
+passes.  This is this build's equivalent: a per-block forward
 analysis over FULL definitions —
 
 * scalar assigns ``x = e``,

@@ -15,7 +15,7 @@ variable access), SINGLE (fixed node/edge variable) and LEVEL*
 * RW: a read that can observe another iteration's write;
 * mixed-op or unbound reductions (``gm_fe_reduce_error_check``).
 
-On the TPU runtime these races are *designed out* (functional updates),
+In the JAX runtime these races are *designed out* (functional updates),
 so the analysis is a front-end service: it validates DSL programs and
 justifies parallel lowering, exactly like the reference compiler.
 """

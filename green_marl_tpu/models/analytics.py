@@ -78,7 +78,8 @@ def potential_friends(g: Graph) -> jax.Array:
     neighbors w (w in N(u), u in N(v), w != u != v) with no direct edge
     v->w.  Returns a dense [N_pad, N_pad] bool membership matrix (the
     reference returns per-node bitmap ``gm_sized_set``s, i.e. the same
-    O(N^2) bits); intended for moderate N — MXU does the 2-hop product.
+    O(N^2) bits); intended for moderate N — one matrix product counts
+    the 2-hop paths (0/1 operands: exact even at TF32 precision).
     """
     n_pad = g.n_pad
     mask = g.node_mask()
@@ -121,8 +122,7 @@ def _triangle_directed_device(g: Graph, cum: jax.Array, total: int,
 
         Triangular numbering: pairs anchored at slot i start at
         base(i) = i*(2d-i-1)/2.  Inverted by integer binary search (exact;
-        valid while C(d,2) fits int32, i.e. row degree < 65536 — beyond
-        that the Pallas merge-intersection path applies).
+        valid while C(d,2) fits int32, i.e. row degree < 65536).
         """
         d = (g.begin[v + 1] - g.begin[v]).astype(jnp.int32)
         off = off.astype(jnp.int32)

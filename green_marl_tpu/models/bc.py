@@ -7,7 +7,7 @@ parents (``v.UpNbrs``), then the reverse sweep accumulates dependencies
 to its direction-optimizing BFS template with ``save_child`` enabled
 (``gm_cpp_gen_bfs.cc``, ``gm_bfs_template.h:273``).
 
-TPU formulation: one forward BFS gives ``level[v]``; "UpNbrs" are exactly
+Device formulation: one forward BFS gives ``level[v]``; "UpNbrs" are exactly
 in-neighbors one level up and "DownNbrs" out-neighbors one level down, so
 both sweeps are per-level masked edge maps via the sorted-segment-reduce
 kernel — no parent lists are materialized (the level array plays

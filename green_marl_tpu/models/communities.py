@@ -4,7 +4,7 @@ Reference semantics: each node counts its out-neighbors' community labels
 in a ``Map<Node, Int>`` and adopts ``T.GetMaxKey()`` unless its current
 label already has the maximal count (``T.HasMaxValue(x.Comm)``).
 
-TPU formulation: per superstep, build (dst-node, neighbor-label) pairs,
+Device formulation: per superstep, build (dst-node, neighbor-label) pairs,
 sort them, and run length-encode with the sorted-segment machinery:
 
 * sort keys ``dst * n_pad + label`` — one ``lax.sort`` over E per step;

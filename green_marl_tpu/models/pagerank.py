@@ -1,6 +1,6 @@
 """PageRank power iteration.
 
-TPU-native reimplementation of ``apps/src/pagerank.gm:1-20`` as compiled by
+Reimplementation of ``apps/src/pagerank.gm:1-20`` as compiled by
 the reference cpp backend (pull-sum over in-neighbors, ``@``-deferred rank
 write = double buffering, L1-diff convergence, iteration cap):
 
@@ -51,7 +51,7 @@ def pagerank(g: Graph, e=0.001, d=0.85, max_iter: int = 100,
              dtype=jnp.float32) -> PageRankResult:
     """Run PageRank to convergence on one device.
 
-    ``dtype`` is float32 by default (TPU-native); pass ``jnp.float64`` under
+    ``dtype`` is float32 by default; pass ``jnp.float64`` under
     ``jax_enable_x64`` on CPU for reference (double) parity.
     """
     n = g.num_nodes
@@ -139,7 +139,6 @@ def pagerank_profiled(g: Graph, e=0.001, d=0.85, max_iter: int = 100,
                                jnp.logical_or(it == 0, diff > e))
 
     state0 = (rank0, jnp.zeros((), dtype), jnp.zeros((), jnp.int32))
-    from ..utils.timing import sync
-    sync(step(state0))     # compile outside the per-step timings
+    jax.block_until_ready(step(state0))  # compile outside the timings
     rank, diff, it = profile_supersteps(step, state0, cond, max_iter)
     return PageRankResult(rank=rank, diff=diff, iterations=it)

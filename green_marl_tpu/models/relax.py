@@ -106,7 +106,7 @@ def min_relax_profiled(g: Graph, root, edge_len=None,
     """Host-driven ``min_relax`` with per-superstep timing lines
     (``superstep[i] time=...``; utils.timing.profile_supersteps) —
     the -GMProfile path for hop_dist/sssp."""
-    from ..utils.timing import profile_supersteps, sync
+    from ..utils.timing import profile_supersteps
     if max_iter is None:
         max_iter = g.num_nodes + 1
     inf = _inf(dist_dtype)
@@ -132,6 +132,6 @@ def min_relax_profiled(g: Graph, root, edge_len=None,
     def cond(state):
         return jnp.any(state[1])
 
-    sync(step((dist0, upd0)))      # compile outside the timings
+    jax.block_until_ready(step((dist0, upd0)))  # compile outside timings
     dist, _ = profile_supersteps(step, (dist0, upd0), cond, max_iter)
     return RelaxResult(dist=dist, iterations=jnp.zeros((), jnp.int32))

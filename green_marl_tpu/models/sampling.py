@@ -8,7 +8,7 @@ Reimplements the reference sampling family with JAX counter-based RNG
 * ``random_degree_node_sampling`` (``random_degree_node_sampling.gm``)
 * ``random_walk_with_jump``     (``random_walk_sampling_with_random_jump.gm``)
 * ``parallel_random_walks``     (``parallel_random_walk_jump_sampling.gm``
-  -style: many walkers advanced in lockstep — the TPU-native win)
+  -style: many walkers advanced in lockstep — the batched win)
 """
 
 from __future__ import annotations

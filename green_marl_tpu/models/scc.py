@@ -2,7 +2,7 @@
 
 The reference implements Kosaraju's two-pass DFS (``apps/src/kosaraju.gm``)
 and Tarjan's stack algorithm (``apps/src/tarjan_scc.gm``) — both
-inherently sequential DFS formulations.  The TPU-native equivalent is the
+inherently sequential DFS formulations.  The device equivalent is the
 **coloring / forward-backward** decomposition (Orzan; FW-BW of Fleischer
 et al.), which is built entirely from fixpoint label propagations:
 

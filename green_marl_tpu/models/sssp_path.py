@@ -2,7 +2,7 @@
 
 The compound argmin assignment ``<s.dist_nxt; s.updated_nxt, s.prev> min=
 <n.dist + e.len; True, n>`` carries the winning predecessor alongside the
-distance.  TPU formulation: two sorted-segment passes per superstep —
+distance.  Device formulation: two sorted-segment passes per superstep —
 first the min distance, then the smallest source achieving it (the
 reference's atomic argmin keeps an arbitrary winner under races,
 ``gm_cpp_gen.cc:1563-1742``; normalized to min-id, documented).

@@ -7,7 +7,7 @@ test-and-test-and-set path ``gm_cpp_gen.cc:1563-1742``), zero both
 degrees, mark covered, select the edge, and subtract ``max_val`` from the
 remaining total; return the covered-node count.
 
-TPU formulation: the argmax over edges is a dense masked reduction with a
+Device formulation: the argmax over edges is a dense masked reduction with a
 deterministic tie-break (lowest CSR slot — the reference's OpenMP argmax
 is first-writer-wins, i.e. nondeterministic; normalized here).
 """

@@ -1,25 +1,17 @@
-"""Scatter-free sorted-segment reductions via prefix sums.
+"""Scatter-free sorted-segment sums via prefix sums.
 
-XLA's scatter on TPU serializes on duplicate indices (measured ~40ms for a
-1.6M-edge ``segment_max`` vs ~0.1ms for a gather of the same size), so none
-of the hot edge maps can go through ``jax.ops.segment_*`` on TPU.  Because
-our CSC/CSR slot arrays are sorted by segment (destination resp. source),
-every segment is a contiguous run ``[begin[v], begin[v+1])`` and a segment
-reduction is expressible with *dense* bandwidth-speed primitives:
+Our CSC/CSR slot arrays are sorted by segment (destination resp.
+source), so every segment is a contiguous run ``[begin[v], begin[v+1])``
+and a segment sum is expressible with dense primitives and no scatter:
 
-    c = exclusive_cumsum(vals)          # one pass over E
+    c = exclusive_cumsum(vals)            # one pass over E
     out[v] = c[begin[v+1]] - c[begin[v]]  # two gathers over N
 
 This module provides that path for **invertible** ops (integer/bool sums,
-counts, OR/ANY via sum>0).  It is *exact* for integers; for float32 sums the
-global prefix magnitude would swamp small addends, so float sums and
-min/max reductions use the Pallas segmented-scan kernel
-(``ops.pallas_kernels``) instead — this module is also their reference
-implementation for tests.
-
-Cost model (v5e, ~800 GB/s HBM): gather+cumsum+diff is ~20 B/edge, i.e.
-~1.7 ms per sweep of a 69M-edge graph — the per-superstep floor for dense
-pull kernels until the fused Pallas path (~12 B/edge) lands.
+counts, OR/ANY via sum>0).  It is *exact* for integers: the prefix wraps
+modulo 2^32 and the differences unwrap it.  For float32 sums the global
+prefix magnitude would swamp small addends, so float sums and min/max
+reductions stay on ``ops.segment.sorted_segment_reduce``.
 """
 
 from __future__ import annotations
@@ -38,15 +30,9 @@ def segment_sum_by_offsets(vals: jax.Array, offsets: jax.Array,
 
     ``vals``: [E_pad] — entries beyond ``offsets[-1]`` are ignored (the
     prefix is only ever evaluated at offsets).  Exact for integer dtypes;
-    for float32 prefer the Pallas row-sum kernel (precision).
+    float sums belong on ``ops.segment.sorted_segment_reduce``.
     """
-    if jax.default_backend() == "tpu":
-        # XLA's scan lowering is pathological at scale on TPU (4.1 s for
-        # 69M int32); the two-pass MXU kernel runs at bandwidth.
-        from . import pallas_kernels
-        c = pallas_kernels.plain_cumsum(vals)
-    else:
-        c = jnp.cumsum(vals)
+    c = jnp.cumsum(vals)
     ex = jnp.concatenate([jnp.zeros((1,), c.dtype), c])  # exclusive prefix
     lo = ex[offsets[:-1]]
     hi = ex[offsets[1:]]

@@ -4,10 +4,10 @@ These primitives replace the reference's generated OpenMP foreach loops and
 atomic reductions (``src/backend_cpp/gm_cpp_gen.cc:1021-1072,1526-1561``,
 ``gm_cpp_gen_foreach.cc:33-328``): instead of per-thread loops over CSR
 ranges with CAS/lock reductions, every neighborhood operation is expressed
-as a dense gather over the padded edge arrays followed by a fixed-order
-segment reduction.  Atomicity/race-freedom is by construction
+as a dense gather over the padded edge arrays followed by a segment
+reduction over sorted slots.  Race-freedom is by construction
 (the RW-analysis race oracle of ``src/frontend/gm_rw_analysis.cc`` is not
-needed at runtime), and results are bit-deterministic run-to-run.
+needed at runtime).
 
 Convention: "pull" ops iterate CSC slots (``r_node_idx`` = sources, sorted
 by destination — equivalent of ``t.InNbrs``), "push" ops iterate CSR slots
@@ -15,9 +15,6 @@ by destination — equivalent of ``t.InNbrs``), "push" ops iterate CSR slots
 carry sentinel endpoints that route junk into the property junk row
 (see ``graph.csr``), so no masking is needed for reductions whose identity
 is safe; ops that need masking do it explicitly.
-
-Pallas fast paths for the hot ops live in ``ops.pallas_kernels`` and are
-selected by the same public entry points when profitable.
 """
 
 from __future__ import annotations
@@ -32,7 +29,10 @@ from ..graph.csr import Graph
 
 
 # ---------------------------------------------------------------------------
-# Raw segment reductions (fixed order, deterministic)
+# Raw segment reductions.  Integer sums and min/max are exact in any
+# order; float sums take XLA's scatter-add order, which on a GPU is
+# atomic and varies from run to run in the last bits
+# (doc/known_issues.md).
 # ---------------------------------------------------------------------------
 
 def _seg(op, vals, ids, num_segments, sorted_ids):
@@ -40,28 +40,16 @@ def _seg(op, vals, ids, num_segments, sorted_ids):
               indices_are_sorted=sorted_ids)
 
 
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
 def sorted_segment_reduce(vals: jax.Array, ids: jax.Array,
                           offsets: jax.Array, n_out: int,
                           op: str) -> jax.Array:
     """Segment reduction over *sorted* runs described by ``offsets``.
 
-    On TPU this routes to the Pallas segmented-scan kernel (XLA scatter
-    serializes on duplicate indices there); elsewhere to
-    ``jax.ops.segment_*`` which is fine on CPU.
+    ``jax.ops.segment_*`` with ``indices_are_sorted=True``; ``ids`` is
+    the per-slot segment id (pad slots carry a sentinel id whose output
+    row the caller ignores).  ``offsets`` [S+1] states the runs of
+    ``ids``; this implementation reads ``ids`` alone.
     """
-    if _on_tpu():
-        if op == "add" and jnp.issubdtype(vals.dtype, jnp.integer):
-            # exact + bandwidth-speed: plain prefix (mod 2^32) + offset
-            # diffs; float sums stay on the segmented kernel (precision)
-            from . import scan_reduce
-            return scan_reduce.segment_sum_by_offsets(vals, offsets, n_out)
-        from . import pallas_kernels
-        return pallas_kernels.segment_reduce_sorted(
-            vals, ids, offsets, n_out, op=op)
     fn = {"add": jax.ops.segment_sum, "min": jax.ops.segment_min,
           "max": jax.ops.segment_max}[op]
     return _seg(fn, vals, ids, n_out, True)

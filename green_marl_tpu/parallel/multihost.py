@@ -2,13 +2,14 @@
 
 The reference's only true multi-node execution path is Barrelfish XOMP:
 ``common_main.h:100-150`` replicates the OpenMP runtime across
-non-coherent domains before the algorithm runs.  The TPU-native
-equivalent is the JAX distributed runtime: every host calls
-:func:`init` before any computation, after which ``jax.devices()`` spans
-all hosts, a :class:`~jax.sharding.Mesh` built over the global device
-list rides ICI/DCN, and the vertex-sharded engine
-(``parallel.vertex_sharded``) runs unchanged — its ``all_to_all`` ghost
-exchange and ``psum`` master scalars become cross-host collectives.
+non-coherent domains before the algorithm runs.  The equivalent here is
+the JAX distributed runtime: every process calls :func:`init` before any
+computation, after which ``jax.devices()`` spans all processes, a
+:class:`~jax.sharding.Mesh` built over the global device list runs its
+collectives through NCCL (over NVLink between the GPUs of one host), and
+the vertex-sharded engine (``parallel.vertex_sharded``) runs unchanged —
+its ``all_to_all`` ghost exchange and ``psum`` master scalars become
+cross-process collectives.
 
 On CPU (CI / this image), collectives go through gloo
 (``jax_cpu_collectives_implementation``), so the multi-host path is
@@ -31,9 +32,11 @@ def init(coordinator_address: Optional[str] = None,
     """Initialize the distributed runtime (call before any jax use).
 
     ``local_cpu_devices > 0`` forces that many virtual CPU devices per
-    process first (CI / development without accelerators).  On real
-    multi-host TPU slices all arguments are auto-detected; pass
-    coordinator/num/id explicitly anywhere else.
+    process first (CI / development without accelerators).  Nothing
+    detects a cluster on its own: pass ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id`` explicitly, and
+    on a GPU host give each process its own cards through
+    ``local_device_ids``.
     """
     if local_cpu_devices:
         flags = os.environ.get("XLA_FLAGS", "")

@@ -11,7 +11,7 @@ Reference mapping (SURVEY.md §2.10, §5):
 * The GPS/Giraph Pregel superstep machine (``gm_gps_gen_master.cc``)
   becomes a ``shard_map``-wrapped ``lax.while_loop``: every shard runs the
   same compiled superstep; the per-superstep "message exchange" is an XLA
-  collective (``psum``/``pmax`` over ICI), and "master scalars"
+  collective (``psum``/``pmax`` over the device interconnect), and "master scalars"
   (convergence ``diff``/``fin``) are computed replicated.
 
 Edge partitioning is by equal CSC slot ranges (not vertex ranges), so

@@ -1,6 +1,6 @@
 """Vertex-sharded execution: owned node state is O(N/S) per device.
 
-This is the TPU-native equivalent of the reference's *actual* distributed
+This is the JAX equivalent of the reference's *actual* distributed
 capability — GPS/Giraph vertex partitioning with typed per-superstep
 messages (``src/inc/gps_comminfo.h:8-100``,
 ``src/backend_gps/gm_gps_find_congruent_message.cc``) and Shoal's
@@ -18,7 +18,7 @@ distribute-not-replicate array placement (``scripts/run.sh:66-105``):
   per superstep is the boundary values — for each (owner, consumer) pair
   a precomputed index list of owner-local vertices the consumer reads as
   edge sources.  Values ride one ``lax.all_to_all`` over the mesh axis
-  (ICI), sized by the graph cut, not by N.
+  (NCCL between GPUs), sized by the graph cut, not by N.
 * **Master scalars** (convergence diff / frontier liveness): ``psum`` —
   the GPS master state machine's aggregators.
 

@@ -26,7 +26,7 @@ This module mirrors those mechanics operation by operation:
   ``is_less`` comparisons only, h:1172-1197); ``heapify_up`` stops on
   equality (h:1199-1211).
 
-The TPU compiled path lowers the same pop-min loops to label-correcting
+The compiled device path lowers the same pop-min loops to label-correcting
 supersteps (``lang/lower_priority.py``) whose distances are identical
 but whose Parent tie-breaks may differ (documented, PARITY.md row 46);
 this replica is the host-exact reference semantics — used by

@@ -1,7 +1,7 @@
 """Runtime RNG (reference ``gm_rand``/per-thread erand48 seeds).
 
 The reference keeps one xorshift/erand48 state per OpenMP thread
-(``src/gm_runtime.cc:60-75``, ``inc/gm_rand.h``); the TPU-native
+(``src/gm_runtime.cc:60-75``, ``inc/gm_rand.h``); the JAX
 equivalent is JAX's counter-based threefry keys — splittable per step and
 per lane, deterministic under any device count (per-thread streams are
 not, which the reference accepts; we improve on it).

@@ -1,6 +1,6 @@
 // Native host runtime: fast graph construction & IO.
 //
-// TPU-native counterpart of the reference's C++ runtime host paths:
+// Counterpart of the reference's C++ runtime host paths:
 // gm_graph::freeze/do_semi_sort/make_reverse_edges/prepare_edge_source
 // (apps/output_cpp/gm_graph/src/gm_graph.cc:68-468) and the text
 // edge-list reader (gm_edge_list_graph_reader.cc).  The Python layer
@@ -22,6 +22,15 @@
 #endif
 
 extern "C" {
+
+// 1 when built with OpenMP, 0 for the serial fallback build.
+int gm_openmp() {
+#if defined(_OPENMP)
+  return 1;
+#else
+  return 0;
+#endif
+}
 
 // Counting-sort based CSR+CSC build (the freeze() hot path).
 // Inputs: src[e], dst[e] (int32), n nodes.
@@ -402,18 +411,16 @@ void gm_desc_layout(const int32_t* dag_begin, const int32_t* dag_dst,
 
 // One-level WIDE bucketed hash fill: wide is [hw * 2*slots] int32 —
 // `slots` (b, c) key pairs per bucket, one bucket = one contiguous
-// row.  With slots=64 a bucket is 512 B, the TPU gather shape that
-// maps a row onto a full 128-lane vector register (the two-level
-// 64 B-bucket layout gathers at ~2.8 ns/ELEMENT; this one at ~9.5
-// ns/ROW — measured scripts/probe_tri_prof.py).  Deterministic
-// slot-order insertion, matching the numpy stable fill.  Returns the
+// row.  With slots=64 a bucket is 512 B, one contiguous row gathered
+// per probe.  Deterministic slot-order insertion, matching the numpy
+// stable fill.  Returns the
 // number of keys that did not fit (0 = success; caller retries seeds).
 int64_t gm_hash_fill_wide(const int32_t* dag_begin,
                           const int32_t* dag_dst, int32_t n, int64_t d,
                           int64_t hw, int32_t slots, uint32_t seed,
                           int32_t* wide) {
-  // empty sentinel 0xFFFFFF (not -1): keeps the table 24-bit-packable
-  // for transfer; pair (E, E) has b == c, unreachable by b < c queries
+  // empty sentinel 0xFFFFFF (not -1, matching triangle._H_EMPTY):
+  // pair (E, E) has b == c, unreachable by b < c queries
   std::fill(wide, wide + hw * 2 * slots, 0xFFFFFF);
   std::vector<int32_t> h1(static_cast<size_t>(d));
   std::vector<int32_t> bsrc(static_cast<size_t>(d));

@@ -11,8 +11,8 @@ over FOUR devices, arranged three ways:
 
 Efficiency = t_1proc / t_Nproc isolates cross-process collective
 overhead — the best multi-host proxy this single-machine image allows
-(all processes share the same silicon; a real 2-host ICI/DCN number
-needs real hosts).  North star: >= 0.8 at the LJ-class operating point;
+(all processes share the same CPU; a real 2-host number needs real
+hosts).  North star: >= 0.8 at the LJ-class operating point;
 the small-graph points EXPECT low efficiency (fixed ~50 ms gloo
 superstep latency, recorded honestly in BASELINE.md).
 
@@ -126,7 +126,9 @@ def multi_process(nprocs, n, e) -> float:
     s.close()
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
-    env.pop("JAX_PLATFORMS", None)
+    # workers are CPU processes (mh.init forces local_cpu_devices); on a
+    # GPU host an unpinned worker would also open every card
+    env["JAX_PLATFORMS"] = "cpu"
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "worker", str(pid),
          str(nprocs), str(port), str(n), str(e)],

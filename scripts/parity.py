@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Output-parity harness: reference cpp_omp binaries vs the TPU framework.
+"""Output-parity harness: reference cpp_omp binaries vs this framework.
 
 Reference side: binaries built from the reference compiler into
 ``.refbuild/`` (see scripts/build_reference.sh; the in-tree reference is
@@ -17,7 +17,7 @@ Checks per app:
                      array (bit-exact — integer BFS levels)
   triangle_counting  the count (exact)
 
-Usage:  python scripts/parity.py [--tpu]   (default runs our side on CPU)
+Usage:  python scripts/parity.py [--device]   (default runs our side on CPU)
 Prints a PASS/FAIL table and exits nonzero on any mismatch.
 """
 import argparse
@@ -39,11 +39,11 @@ def run_ref(app, extra=()):
     return out.stdout
 
 
-def run_ours(app, tpu=False, extra=()):
+def run_ours(app, on_device=False, extra=()):
     env = dict(os.environ)
     code = (
         "import jax\n"
-        + ("" if tpu else "jax.config.update('jax_platforms','cpu')\n")
+        + ("" if on_device else "jax.config.update('jax_platforms','cpu')\n")
         + "import sys\n"
         + f"sys.argv = ['run', '{app}', {FIXTURE!r}] + {list(extra)!r}\n"
         + "from green_marl_tpu.cli.run import main\nmain()\n")
@@ -61,8 +61,9 @@ def grab(pattern, text):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true",
-                    help="run our side on the real TPU instead of CPU")
+    ap.add_argument("--device", action="store_true",
+                    help="run our side on JAX's default accelerator "
+                         "instead of the CPU")
     args = ap.parse_args()
 
     if not os.path.exists(os.path.join(REFBIN, "pagerank")):
@@ -78,10 +79,10 @@ def main():
 
     # ---- pagerank -------------------------------------------------------
     ref = run_ref("pagerank")
-    ours = run_ours("pagerank", args.tpu)
+    ours = run_ours("pagerank", args.device)
     r_ranks = grab(r"^rank\[\d\] = ([0-9.eE+-]+)", ref)[:4]
     o_ranks = grab(r"^rank\[\d\] = ([0-9.eE+-]+)", ours)[:4]
-    if args.tpu:
+    if args.device:
         ok = all(abs(float(a) - float(b)) <= 1e-9 + 1e-4 * abs(float(a))
                  for a, b in zip(r_ranks, o_ranks))
         check("pagerank rank[0..3] (tol 1e-4 rel, f32 device sums)",
@@ -94,7 +95,7 @@ def main():
 
     # ---- hop_dist -------------------------------------------------------
     ref = run_ref("hop_dist")
-    ours = run_ours("hop_dist", args.tpu)
+    ours = run_ours("hop_dist", args.device)
     r_d = grab(r"^dist\[\d\] = (-?\d+)", ref)[:10]
     o_d = grab(r"^dist\[\d\] = (-?\d+)", ours)[:10]
     check("hop_dist dist[0..9]", r_d == o_d and len(o_d) == 10,
@@ -112,7 +113,7 @@ def main():
 
     # ---- triangle_counting ---------------------------------------------
     ref = run_ref("triangle_counting")
-    ours = run_ours("triangle_counting", args.tpu)
+    ours = run_ours("triangle_counting", args.device)
     r_t = grab(r"number of triangles: (\d+)", ref)
     o_t = grab(r"number of triangles: (\d+)", ours)
     check("triangle count exact", r_t == o_t, f"{r_t} vs {o_t}")
@@ -121,7 +122,7 @@ def main():
 
     # ---- sssp (xorshift weights replicated bit-exact) -------------------
     ref = run_ref("sssp")
-    ours = run_ours("sssp", args.tpu)
+    ours = run_ours("sssp", args.device)
     r_d = grab(r"^dist\[\d\] = (-?\d+)", ref)[:10]
     o_d = grab(r"^dist\[\d\] = (-?\d+)", ours)[:10]
     check("sssp dist[0..9] (replicated gm_rand32 weights)",
@@ -131,7 +132,7 @@ def main():
 
     # ---- avg_teen_cnt ---------------------------------------------------
     ref = run_ref("avg_teen_cnt")
-    ours = run_ours("avg_teen_cnt", args.tpu)
+    ours = run_ours("avg_teen_cnt", args.device)
     r_a = grab(r"^avg = ([0-9.]+)", ref)
     o_a = grab(r"^avg = ([0-9.]+)", ours)
     check("avg_teen_cnt avg exact print", r_a == o_a,
@@ -141,7 +142,7 @@ def main():
 
     # ---- conduct (xorshift membership replicated) -----------------------
     ref = run_ref("conduct")
-    ours = run_ours("conduct_main", args.tpu)
+    ours = run_ours("conduct_main", args.device)
     r_c = grab(r"^sum C = ([0-9.]+)", ref)
     o_c = grab(r"^sum C = ([0-9.]+)", ours)
     ok = (bool(r_c) and bool(o_c)
@@ -154,7 +155,7 @@ def main():
     # ---- sampling family (outputs are random; protocol + rc parity) ----
     for app in ("random_node_sampling", "random_degree_node_sampling"):
         ref = run_ref(app)
-        ours = run_ours(app, args.tpu)
+        ours = run_ours(app, args.device)
         ok = ("GM DONE" in ref
               and bool(grab(r"running time=", ref))
               and bool(grab(r"graph loading time=", ours)))

@@ -7,7 +7,7 @@
  * the exact generated-code API but backs every array with a single
  * malloc'd buffer — i.e. the "baseline" (no -d/-r/-p) configuration of
  * scripts/run.sh.  CRC reporting uses CRC-16/CCITT-FALSE over the raw
- * array bytes, matching the TPU framework's utils/crc.py so parity
+ * array bytes, matching the JAX framework's utils/crc.py so parity
  * harnesses can diff the "CRC shl__<name> 0x...." lines directly.
  */
 #ifndef SHL_STUB_H

@@ -7,7 +7,7 @@ NUM_RUNS times on the committed fixture, verify outputs via
 scripts/parity.py once, take median ``running time=``, and rewrite the
 measured-baselines table in BASELINE.md between the marker lines.
 
-Usage: python scripts/sweep.py [--runs 3] [--tpu] [--no-baseline-update]
+Usage: python scripts/sweep.py [--runs 3] [--device] [--no-baseline-update]
 """
 import argparse
 import os
@@ -49,12 +49,12 @@ def ref_time(app, runs):
     return statistics.median(ts)
 
 
-def our_time(app, runs, tpu):
+def our_time(app, runs, on_device):
     ts = []
     for _ in range(runs):
         code = (
             "import jax\n"
-            + ("" if tpu else
+            + ("" if on_device else
                "jax.config.update('jax_platforms','cpu')\n")
             + "import sys\nsys.path.insert(0, '.')\n"
             + "from green_marl_tpu.cli.apps import main\n"
@@ -72,14 +72,14 @@ def our_time(app, runs, tpu):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=3)
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--device", action="store_true")
     ap.add_argument("--no-baseline-update", action="store_true")
     args = ap.parse_args()
 
     print("== verification (scripts/parity.py) ==")
     rc = subprocess.run([sys.executable,
                          os.path.join(REPO, "scripts", "parity.py")]
-                        + (["--tpu"] if args.tpu else []),
+                        + (["--device"] if args.device else []),
                         cwd=REPO).returncode
     if rc != 0:
         print("parity FAILED; not recording timings")
@@ -88,7 +88,7 @@ def main():
     rows = []
     for ref_app, our_app in APPS:
         rt = ref_time(ref_app, args.runs)
-        ot = our_time(our_app, args.runs, args.tpu)
+        ot = our_time(our_app, args.runs, args.device)
         note = "" if ot is not None else " (no timing line)"
         rows.append((ref_app, rt, ot, note))
         print(f"{ref_app:32s} ref {rt:10.3f} ms   "
@@ -98,7 +98,7 @@ def main():
     if args.no_baseline_update:
         return 0
 
-    side = "TPU" if args.tpu else "CPU"
+    side = "device" if args.device else "CPU"
     lines = [MARK_A,
              f"### Measured baselines (parity10k fixture, "
              f"NUM_RUNS={args.runs}, reference=2 OpenMP threads, "

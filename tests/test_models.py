@@ -248,42 +248,12 @@ class TestTriangles:
             for j in range(s + 1, int(row_end[s])):
                 if (int(dd_np[s]), int(dd_np[j])) in edges:
                     want += 1
-        pending, done, tot = m_tri._count_shift_region(
+        pending = m_tri._count_shift_region(
             jnp.asarray(dd_np), jnp.asarray(np.asarray(
                 perm.dag_begin)), jnp.asarray(eh.wide), eh.seed,
             db_np, s_cut, D, chunk=1 << 17)
-        assert done == tot
         got = limb_fetch_sum(pending)
         assert got == want
-
-    @pytest.mark.parametrize("n_done_frac", [0.25, 0.6, 1.0])
-    def test_shift_covered_wedges_exact(self, n_done_frac):
-        """Budget-truncation accounting: the closed-form prefix count
-        equals the brute-force valid-lane count over done pieces."""
-        src, dst = gen.rmat_edges(500, 4000, seed=5)
-        src, dst = to_undirected(src, dst)
-        keep = src != dst
-        g, _ = from_edges(src[keep], dst[keep], 500)
-        ctx = m_tri.build_dag(g)
-        perm = m_tri._permuted_ctx(ctx)
-        db_np = np.asarray(perm.dag_begin).astype(np.int64)
-        D = perm.num_dag_edges
-        chunk = 64
-        pieces = m_tri._shift_pieces(db_np, 0, D, chunk)
-        n_done = max(1, int(pieces.shape[0] * n_done_frac))
-        got = m_tri._shift_covered_wedges(db_np, 0, chunk, pieces,
-                                          n_done)
-        deg = np.diff(db_np)
-        src_of = np.repeat(np.arange(db_np.shape[0] - 1), deg)
-        row_end = db_np[src_of + 1]
-        pairs = row_end - np.arange(D) - 1
-        want = 0
-        for d, s0 in pieces[:n_done]:
-            sl = pairs[s0: s0 + chunk]
-            want += int(np.sum(sl >= d))
-        assert got == want
-        if n_done == pieces.shape[0]:
-            assert got == perm.num_wedges
 
     def test_edge_hash_build_exact(self):
         """Every DAG edge is stored in the wide table exactly; absent

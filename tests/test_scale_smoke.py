@@ -1,17 +1,15 @@
-"""Large-graph (twitter-class) readiness smoke (VERDICT r4 item 4).
+"""Large-graph (twitter-class) readiness smoke.
 
 The reference compiles EDGE_SIZE=64 for twitter_rv (setup.mk.in:55-57,
 extract_result.py:102-104 goldens).  This repo's answer: host edge
 space is int64-capable (graph/binary_io.py, GraphBuilder), the native
 CSR builder takes int64 edge counts with int32 ids (twitter's N=41.6M,
-E=1.47B both fit int32 values), the 24-bit transfer pack refuses ids >=
-2^24 at SELECTION time (bench.py can_pack; utils/pack.py asserts), and
-the vertex-sharded layout keeps per-shard device slots int32.
+E=1.47B both fit int32 values), and the vertex-sharded layout keeps
+per-shard device slots int32.
 
 The 42M-NODE smoke (loader -> binned schedule -> one PageRank
 superstep) allocates ~12 GB host + ~2 GB device and takes minutes, so
 it is opt-in: ``SCALE_SMOKE=1 python -m pytest tests/test_scale_smoke.py``.
-Results are recorded in BASELINE.md's max-scale table.
 """
 import os
 
@@ -24,18 +22,6 @@ import jax.numpy as jnp
 from green_marl_tpu.graph import generate as gen
 from green_marl_tpu.graph.csr import from_edges, round_up
 from green_marl_tpu.ops import binned
-from green_marl_tpu.utils import pack
-
-
-def test_pack24_refuses_wide_ids():
-    """Ids >= 2^24 must fail the pack range assert (bench.py guards at
-    selection time; this is the backstop)."""
-    with pytest.raises(AssertionError):
-        pack.pack24(np.asarray([1 << 24], np.int64))
-    # 2^24 - 1 is the largest packable id
-    w = pack.pack24(np.asarray([(1 << 24) - 1, 3], np.int64))
-    got = np.asarray(pack.unpack24(jnp.asarray(w), 2))
-    np.testing.assert_array_equal(got, [(1 << 24) - 1, 3])
 
 
 def test_int64_host_edge_space_small():
@@ -52,7 +38,7 @@ def test_int64_host_edge_space_small():
 @pytest.mark.skipif(os.environ.get("SCALE_SMOKE") != "1",
                     reason="opt-in: ~12 GB host RAM, minutes of CPU")
 def test_scale_42m_nodes_smoke():
-    N = 42_000_000            # > 2^24 (pack24-ineligible), twitter-class
+    N = 42_000_000            # > 2^24, twitter-class
     E = 120_000_000
     src, dst = gen.uniform_random_edges(N, E, seed=1)
     src = src.astype(np.int32)
@@ -87,13 +73,10 @@ def test_scale_42m_nodes_smoke():
 
 
 def test_vsharded_scale_probe_smoke():
-    """The vertex-sharded at-scale witness pipeline (r5: batched
-    bit-plane BFS + compiled hop_dist/pagerank on the 8-device mesh,
-    all host-oracle-verified) runs end-to-end in its reduced
-    configuration.  The FULL N=2^25/E=250M execution runs inside every
-    full bench (`vsharded_scale` section) and is recorded in
-    BASELINE.md's max-scale table; this keeps the pipeline itself
-    under pytest."""
+    """The vertex-sharded at-scale pipeline (batched bit-plane BFS +
+    compiled hop_dist/pagerank on the 8-device mesh, all
+    host-oracle-verified) runs end-to-end in its reduced
+    configuration."""
     import json
     import subprocess
     import sys as _sys
